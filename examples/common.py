@@ -3,7 +3,8 @@
 Mirrors the reference drivers' single `--xml-file` option
 (examples/MLMC.cpp:54-57) plus native overrides for every common knob.
 With no arguments, drivers run the built-in golden test parameters
-(CreateMLMCTestParameters analog).
+(CreateMLMCTestParameters analog). Parsing also turns on the persistent
+compilation cache (utils/compile_cache.py).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import argparse
 import dataclasses
 
 from parelagmc_tpu.config import ProblemConfig, read_xml_parameterlist
+from parelagmc_tpu.utils.compile_cache import enable_compile_cache
 
 
 def _attr_vec(s):
@@ -25,6 +27,7 @@ def _axis_order(s):
 
 
 def parse_config(argv=None, **defaults) -> ProblemConfig:
+    enable_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("-f", "--xml-file", default=None,
                    help="reference-format XML ParameterList")
@@ -70,8 +73,8 @@ def parse_config(argv=None, **defaults) -> ProblemConfig:
                    help="disable marginal normalization (reference parity)")
     p.add_argument("--axis-order", default=None,
                    help="device grid-axis layout for tensor meshes: "
-                        "'auto' (largest cell count becomes the TPU-lane "
-                        "axis, measured 1.59x on the SPE10 V-cycle), "
+                        "'auto' (largest cell count becomes the minor "
+                        "array axis), "
                         "'none', or an explicit permutation like '1,0,2' "
                         "(config.axis_order)")
     p.add_argument("--coarse-ops", default=None,

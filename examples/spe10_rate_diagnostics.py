@@ -6,10 +6,10 @@ problem into its two error sources, per sample:
     Y_disc  = Q_l(P w_{l+1})  - Q_{l+1}(w_{l+1}) (discretization + kinv
                                                   upscaling, same field)
 
-with P the piecewise-constant prolongation of the coarse sample field. The
-round-2 evidence (SPE10_MLMC_EVIDENCE.txt) showed no multilevel variance
-decay (beta = -0.50); this tool identifies which mechanism carries the
-variance so the fix targets the right component (VERDICT round 2, item 1).
+with P the piecewise-constant prolongation of the coarse sample field. An
+earlier hierarchy showed no multilevel variance decay (beta = -0.50); this
+tool identifies which mechanism carries the variance so the fix targets
+the right component (VERDICT round 2, item 1).
 
 Runs on CPU float64 by default (scaled grid). Usage:
     python examples/spe10_rate_diagnostics.py --grid 16,56,16 --n 64
@@ -34,7 +34,8 @@ def main(argv=None):
     ap.add_argument("--solver", default="cg-schur-coefmg")
     ap.add_argument("--rtol", type=float, default=1e-8)
     ap.add_argument("--cpu", action="store_true", default=True)
-    ap.add_argument("--tpu", dest="cpu", action="store_false")
+    ap.add_argument("--device", dest="cpu", action="store_false",
+                    help="run on JAX's default device instead of CPU f64")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--normalize", action="store_true",
                     help="exact marginal normalization of the SPDE field")

@@ -3,8 +3,7 @@
 Reference analog: examples/RatioEstimator_MLMC_Manager.cpp driving
 ML_BayesRatio(_Splitting)_Manager (src/ML_BayesRatio_Manager.hpp:314-573)
 with the SPDE prior + Darcy likelihood on the SPE10 benchmark - the
-reference's capstone capability, which until round 5 had only toy-mesh
-evidence here (VERDICT r4 next-round item 2).
+reference's capstone capability at full scale.
 
 Posterior setup: three "well" pressure observations at mid-depth along
 the long (y) axis of the 1200x2200x170 ft domain, local-average
@@ -15,15 +14,14 @@ E[R/Z] splitting variant (--splitting).
 
 Full-grid runs (default) inherit the production solver defaults from
 examples/spe10_mlmc.py (adjoint-corrected QoI, cheb3/bf16 coefMG,
-meanfield warm starts, split Z/R stream programs - the four-solve
-composed step would exceed the TPU execution-duration limit). --grid
+meanfield warm starts, split Z/R stream programs). --grid
 nx,ny,nz runs a scaled box with the SPE10 extents (synthetic perm), used
 by the CI anchor test.
 
-Writes SPE10_RATIO_EVIDENCE.json: posterior estimate, Z/R moment
+Writes spe10_ratio_mlmc.json: posterior estimate, Z/R moment
 dashboards, adaptive N_l, per-level solver convergence canary.
 
-Usage (real TPU, from /root/repo):
+Usage (on the GPU, from the checkout root):
     python examples/spe10_ratio_mlmc.py --refinements 2 --samples 64
     python examples/spe10_ratio_mlmc.py --refinements 2 --splitting ...
 """
@@ -68,7 +66,7 @@ def main(argv=None):
         i = argv.index("--grid")
         grid = tuple(int(x) for x in argv[i + 1].split(","))
         del argv[i: i + 2]
-    out_json = "SPE10_RATIO_EVIDENCE.json"
+    out_json = "spe10_ratio_mlmc.json"
     if "--out" in argv:
         i = argv.index("--out")
         out_json = argv[i + 1]
@@ -119,7 +117,7 @@ def main(argv=None):
 
     # Solver convergence canary on the exact solves the Z/R streams run
     # (the ratio steps do not surface SolveInfo; an unconverged level is
-    # NOT evidence - CLAUDE.md miscompile/validity rules).
+    # NOT a result).
     import jax
 
     canary = []

@@ -1,4 +1,4 @@
-"""parelagmc_tpu — a TPU-native multilevel Monte Carlo framework for PDEs with
+"""parelagmc_tpu — a JAX multilevel Monte Carlo framework for PDEs with
 random coefficients.
 
 A from-scratch JAX/XLA re-design of the capabilities of LLNL/ParELAGMC
@@ -13,7 +13,7 @@ A from-scratch JAX/XLA re-design of the capabilities of LLNL/ParELAGMC
 * Single-level MC and multilevel MC estimator managers with adaptive sample
   allocation, plus Bayesian ratio / splitting estimators.
 
-Design stance (TPU-first, not a port):
+Design stance (batched accelerator code, not a port):
 * All mesh-dependent, sample-independent operators (mass matrices,
   divergence incidence, prolongators, mortar transfer) are precomputed on the
   host at setup and shipped to the device as static gather/ELL operands.

@@ -106,8 +106,7 @@ class SolverConfig:
     # instead of the global geometric mean (stronger on rough fields).
     local_schur_scaling: bool = False
     mg_coarse_sweeps: int = 8  # 0: dense coarsest inverse; >0: Jacobi sweeps
-    # (dense matmuls inside lax loop bodies crash the TPU worker at SPE10
-    #  scale; Jacobi sweeps match the dense quality within a few iterations)
+    # (Jacobi sweeps match the dense quality within a few iterations)
     # Tridiagonal line relaxation along every strongly-coupled axis in the
     # structured Schur MG (auto-detected per level: axes with >= 3x the
     # weakest axis's mean coupling; alternating-direction when several
@@ -130,8 +129,7 @@ class SolverConfig:
     coefmg_cheby_lo: float = 0.25
     # Jacobi pre/post sweeps per V-cycle level when coefmg_cheby_order == 0
     # (ignored by the Chebyshev smoother, which derives its sweep count
-    # from the order). V(2,2) is the measured SPE10 sweet spot; the knob
-    # exists for examples/spe10_mg_tuning.py sweeps.
+    # from the order). V(2,2) is the measured SPE10 sweet spot.
     coefmg_sweeps: int = 2
     # Jacobi damping for the coefMG smoother and coarsest sweeps.
     coefmg_omega: float = 0.8
@@ -184,7 +182,7 @@ class SolverConfig:
     # PCG (rhs axis -2, vmapped operator/preconditioner closures) instead
     # of two sequential solves. The per-sample preconditioner state
     # (tridiagonal mass factors, coefMG dinv/idiag hierarchies) is then
-    # streamed from HBM once per iteration for BOTH systems - on the
+    # streamed from device memory once per iteration for BOTH systems - on the
     # bandwidth-bound SPE10-scale levels the second right-hand side rides
     # nearly free, and the loop runs max(it_p, it_a) trips instead of
     # it_p + it_a. Off by default pending the at-scale fusion canaries
@@ -208,7 +206,7 @@ class SolverConfig:
     # Preconditioner-state dtype for cg-schur-coefmg: "" keeps the solve
     # dtype; "bfloat16" casts the per-sample V-cycle tables AND its
     # residual math to bf16 (CG itself stays in the solve dtype). The
-    # V-cycle is HBM-bandwidth-bound on TPU, so halving its bytes buys
+    # V-cycle is bound by memory bandwidth, so halving its bytes buys
     # throughput at the cost of a slightly weaker preconditioner -
     # measure iterations before adopting (a preconditioner only needs
     # ~1e-2 relative quality; bf16's 8 exponent bits cover any
@@ -218,7 +216,7 @@ class SolverConfig:
     # (parallel/spatial_darcy.py): > 1 shards each realization's solve
     # state into spatial_shards y-slabs over the device mesh (the
     # reference's MPI/ParMesh axis, src/DarcySolver.cpp:651-675), cutting
-    # the per-device HBM footprint ~1/shards. spatial_sample_shards
+    # the per-device memory footprint ~1/shards. spatial_sample_shards
     # additionally shards the sample batch over a leading 'dp' mesh axis
     # (device mesh (dp, sp), spatial_shards * spatial_sample_shards
     # devices). Requires a cg-schur-family solver and essential BCs on
@@ -250,13 +248,11 @@ class ProblemConfig:
     # FINEST mesh and agglomerates it nlevels-1 times.
     unstructured_coarsening: bool = False
     coarsening_factor: int = 8
-    # Device grid-axis layout (tensor meshes only). TPU tiles the two
-    # minormost array axes to (8, 128) for f32, so a small x-count pads the
-    # 128-lane dimension: SPE10's (60, 220, 85) grid wastes 2.17x of every
-    # grid-shaped tensor's HBM footprint/bandwidth (60 -> 128 lanes).
-    # "auto" relabels the mesh axes so the LARGEST cell count is x (the
-    # fastest/minor dim) - measured 1.59x on the SPE10 level-0 V-cycle
-    # (examples/spe10_layout_probe.py). A tuple gives the explicit
+    # Device grid-axis layout (tensor meshes only). "auto" relabels the
+    # mesh axes so the LARGEST cell count is x (the fastest/minor array
+    # dim). The rule was tuned for an accelerator that pads the minor axis
+    # to 128 lanes (SPE10's x = 60); whether it pays on the GPU is still
+    # to be measured (ROADMAP queue 1 item 8). A tuple gives the explicit
     # permutation (new axis i = original axis order[i]). The relabeling is
     # applied at build time to every axis-coupled input (ncells, lengths,
     # spacings, kinv_ref, boundary-side attributes, qoi_point, n_buffer) -
@@ -332,8 +328,8 @@ class ProblemConfig:
     # Batching / devices.
     batch_size: int = 32
     # Optional per-level batch sizes (finest first; overrides batch_size in
-    # the managers). At SPE10 scale the finest level is HBM-bound while
-    # coarse levels want large batches for MXU occupancy.
+    # the managers). At SPE10 scale the finest level is bound by device
+    # memory while coarse levels want large batches to fill the device.
     batch_size_per_level: Optional[List[int]] = None
     # Manager-level sample parallelism: shard every estimator batch over
     # this many devices on a 1D 'dp' jax.sharding.Mesh (parallel.SampleMesh;
@@ -344,10 +340,11 @@ class ProblemConfig:
     sample_shards: int = 0
     dtype: str = "float32"  # device dtype; host verification can use float64
     # Run each MLMC pair step as TWO device programs (coarse solve, then
-    # warm-started fine solve) instead of one composed program. Needed at
-    # SPE10 scale: a single composed execution at ~4.5M dofs exceeds the
-    # TPU worker's execution-duration limit (see CLAUDE.md). Statistically
-    # identical to the composed step (same RNG stream, same warm start).
+    # warm-started fine solve) instead of one composed program, so each
+    # device execution stays bounded at SPE10 scale (~4.5M dofs) and a
+    # host-side convergence check sits between them. Whether the GPU needs
+    # this is ROADMAP design item 2. Statistically identical to the
+    # composed step (same RNG stream, same warm start).
     split_pair_programs: bool = False
     # With split_pair_programs: continue an unconverged fine solve for up
     # to this many bounded executions (darcy_solver.max_iterations each),

@@ -6,7 +6,7 @@ into contiguous agglomerates (/root/reference/src/Utilities.cpp:125-155
 BuildTopologyAlgebraic: METIS_PartGraphKway, fixed seed, contiguous) and a
 coarse de Rham sequence is built on the agglomerated topology level by level
 (src/DarcySolver.cpp:161-169 Coarsen() loop). This module provides the
-TPU-native equivalent: everything here is setup-time host NumPy producing
+Device-oriented equivalent: everything here is setup-time host NumPy producing
 static per-level operator bundles for the device layer (SURVEY.md section
 7.1: precompute all operators on host, batch samples on device).
 

@@ -252,7 +252,7 @@ class StructuredMesh:
         self, points: np.ndarray, eps: float, attr: int = 2
     ) -> np.ndarray:
         """Set `attributes` to `attr` for cells whose center lies within
-        (sup-norm) `eps` of any of the given points. TPU-native analog of
+        (sup-norm) `eps` of any of the given points. Batched analog of
         ChangeMeshAttributes (reference: src/MeshUtilities.cpp:59-62) used to
         build pointwise-regularized observation functionals. Returns a bool
         mask of marked cells."""

@@ -1,6 +1,6 @@
 // Native geometry kernels for the mortar transfer subsystem.
 //
-// TPU-native equivalent of the reference's from-scratch distributed
+// Host-side equivalent of the reference's from-scratch distributed
 // communication/geometry stack (/root/reference/src/transfer/: Box,
 // HashGrid, Intersect2D/3D polygon-polyhedron clipping, MortarAssembler) -
 // redesigned for the precompute-at-setup model (SURVEY.md 2.3/5.8): mesh

@@ -2,10 +2,10 @@
 
 The reference rebuilds its AMG preconditioner from the actual sampled
 coefficient on every solve (hypre BoomerAMG setup per sample,
-/root/reference/src/DarcySolver.cpp:562-649). The static-hierarchy TPU
+src/DarcySolver.cpp:562-649 of the reference). The static-hierarchy
 analog (ops/multigrid.py built on kinv_ref only, sample entering through a
 global or per-cell scale) measurably under-preconditions rough lognormal
-samples. This module closes that gap TPU-natively: the ENTIRE coefficient
+samples. This module closes that gap with static device tables: the ENTIRE coefficient
 dependence of the MG hierarchy reduces to static gather tables applied to
 one per-sample face vector.
 

@@ -15,11 +15,10 @@ static SLICE / RESHAPE / PAD instead of a gather:
 * the per-sample hierarchy setup (coarse dinv) selects the coarse face
   planes (static indices) and group-sums the transverse directions.
 
-Why this exists: measured on the real TPU at SPE10 level 0 (1.12M cells,
-batch 8), the gather-based V(2,2) cycle costs ~550 ms/call - two orders of
-magnitude above its bandwidth bound - because large take()s along the dof
-axis defeat XLA's TPU vectorizer. The slicing formulation is pure VPU
-work at HBM speed. The generic module remains the oracle (bit-compatible
+Why this exists: at SPE10 level 0 (1.12M cells) the gather-based V-cycle
+does millions-of-index take()s along the dof axis, while static slices
+are contiguous loads that run at memory bandwidth. The generic module
+remains the oracle (bit-compatible
 up to float reassociation) and the fallback for unstructured/agglomerated
 meshes (build_coef_mg_graph).
 """
@@ -29,7 +28,8 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import jax.numpy as jnp
-import numpy as np
+
+from parelagmc_tpu.ops.tridiag import solve_lines
 
 
 class StructMGLevel(NamedTuple):
@@ -59,7 +59,7 @@ class StructCoefMG(NamedTuple):
     # link exactly (it is IN the tridiagonal), killing the mode in one
     # sweep. Reference analog: hypre's BoomerAMG handles this via
     # strength-of-connection coarsening; per-sample coefficient-adaptive
-    # AGGREGATION would break the static tensor structure on TPU, so the
+    # AGGREGATION would break the static tensor structure, so the
     # smoother absorbs the coefficient adaptivity instead.
     line_axes: Tuple[int, ...] = ()
     line_omega: float = 1.0
@@ -128,22 +128,15 @@ def _tail(n_f: int, n_c: int) -> int:
     return n_f - 2 * (n_c - 1)
 
 
-# MISCOMPILE GUARD (measured, 2026-08-18): axis-native forms of the three
-# transfer helpers below (middle-axis reshape-split + sum for _group_sum,
-# expand_dims + broadcast + reshape-merge for _repeat_groups, middle-axis
-# strided slice for _plane_select - no moveaxis anywhere) are MISCOMPILED
-# by this XLA:TPU backend when all three are fused into a multi-level
-# V-cycle program at batch >= 2: outputs for sample 0 change with the
-# batch size (max rel diff O(1); CPU backend is exact on the identical
-# jaxpr, batch 1 is exact, and every helper is exact in isolation - only
-# the composed multi-output program breaks, e.g. at level shapes
-# (110,30,42)/(55,15,21)/(27,7,10)). Reverting ANY one helper to the
-# moveaxis(axis, -1) form below clears the observed reproducer, but the
-# failure is fusion-context-dependent, so ALL THREE stay in the
-# moveaxis form (round-2 production-proven at SPE10 scale). The axis-
-# native variants saved one lane-crossing transpose per axis per
-# transfer; do not reintroduce them without a batch-consistency check on
-# real TPU (examples/spe10_performance.py --selfcheck).
+# History: the three transfer helpers below use the moveaxis(axis, -1)
+# form. Axis-native forms (middle-axis reshape-split + sum, expand_dims +
+# broadcast + reshape-merge, middle-axis strided slice - no moveaxis) were
+# miscompiled by the XLA backend of the accelerator this code was first
+# written for, once all three fused into a multi-level V-cycle at batch
+# >= 2 (sample 0 changed with the batch size; the CPU backend was exact). The moveaxis form is
+# correct on every backend and stays; an axis-native variant would save
+# one transpose per axis per transfer and needs the batch-consistency
+# check of examples/spe10_performance.py --selfcheck before it lands.
 
 
 def _group_sum(x: jnp.ndarray, axis: int, n_f: int, n_c: int) -> jnp.ndarray:
@@ -206,7 +199,7 @@ def _face_series(x: jnp.ndarray, axis: int, n_f: int, n_c: int) -> jnp.ndarray:
     is a second reason this option converges faster (measured on the
     half-scale synthetic SPE10 at rtol 1e-7: 51 -> 34 CG iterations with
     the cheb3 smoother, 49 -> 28 with cheb3 + z lines). Moveaxis form per
-    the MISCOMPILE GUARD above."""
+    the history note above."""
     if n_c == n_f:
         return x
     x = jnp.moveaxis(x, axis, -1)
@@ -398,27 +391,11 @@ def _cheb_smooth_grid(mg, dinv_axes, idiag, b, x):
     return x + dvec
 
 
-def _tridiag_solve_last(dl, dd, du, r):
-    """Tridiagonal solve along the LAST axis, Pallas-fused on accelerator
-    backends for large line counts (the same dispatch rule as
-    ops/mass_solve.build_mass_tridiag_solver's measured crossover)."""
-    import jax as _jax
-
-    nlines = int(np.prod(r.shape[:-1])) if r.ndim > 1 else 1
-    if nlines * r.shape[-1] > 32768 and _jax.default_backend() != "cpu":
-        from parelagmc_tpu.ops.tridiag_pallas import tridiag_thomas_pallas
-
-        return tridiag_thomas_pallas(dl, dd, du, r)
-    from parelagmc_tpu.ops.mass_solve import _thomas_solve
-
-    return _thomas_solve(dl, dd, du, r)
-
-
 def _line_solve(tables, r, d: int, a: int):
     """T_a^{-1} r on the cell grid (tables from _line_tables)."""
     dl, dd, du = tables
     ax = _arr_ax(r, d, a)
-    x = _tridiag_solve_last(dl, dd, du, jnp.moveaxis(r, ax, -1))
+    x = solve_lines(dl, dd, du, jnp.moveaxis(r, ax, -1))
     return jnp.moveaxis(x, -1, ax)
 
 

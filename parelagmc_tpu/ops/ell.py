@@ -1,10 +1,10 @@
-"""Static-sparsity matrix-free operators for TPU.
+"""Static-sparsity matrix-free operators for batched accelerator code.
 
 All sparse operators in this framework (mass matrices, incidence,
 prolongators, reduced SPDE operators) have mesh-determined, sample-
 independent sparsity. We store them in padded ELL form - per-row index and
 value slabs of fixed width - so that applying them to a *batch* of vectors
-is a gather + multiply + reduce, which XLA maps onto TPU vector units with
+is a gather + multiply + reduce, which XLA compiles into fused kernels with
 fully static shapes. Duplicate (row, col) slots are allowed and simply
 accumulate, which lets assembly skip any merging pass.
 
@@ -20,7 +20,7 @@ Two flavors:
 
 Batching: x may have arbitrary leading batch dimensions; the dof axis is
 always last. That keeps the batch contiguous in the minor-most memory
-dimension after the gather, which is what the VPU wants.
+dimension after the gather.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 Our solver/sampler steps close over large static operator pytrees (ELL
 tables, spectral factors, MG hierarchies). Plain jax.jit embeds captured
-concrete arrays as *constants in the lowered module*, which (a) bloats the
-serialized program - at SPE10 scale past the compile service's request
-limit (HTTP 413) - and (b) slows compilation. `jit_hoisted` traces the
+concrete arrays as *constants in the lowered module*, which bloats the
+serialized program (hundreds of MB at SPE10 scale), slows compilation and
+keeps a second copy of every table in the executable. `jit_hoisted` traces the
 function once with make_jaxpr, extracts the captured constants, and returns
 a wrapper that passes them to a jitted pure evaluator as ordinary device
 arguments instead.
@@ -59,9 +59,9 @@ def jit_hoisted(fn: Callable, *example_args) -> Callable:
         jitted.lower(consts, flat_ex).compile()
 
     def memory_analysis():
-        """Compile-only HBM probe (the CLAUDE.md recipe): returns the
-        backend's CompiledMemoryStats without executing - evidence that a
-        program fits the chip before paying a real run."""
+        """Compile-only device-memory probe: returns the backend's
+        CompiledMemoryStats without executing - evidence that a program
+        fits the device before paying a real run."""
         return jitted.lower(consts, flat_ex).compile().memory_analysis()
 
     wrapper.aot_compile = aot_compile

@@ -10,9 +10,8 @@ have per-cell coefficients
     off[i,i+1] = w[i]*m6[i],                    m6 = h^2/(6V)
 
 (one-sided at boundaries), so M(w)^{-1} is applied *exactly* per sample by
-batched Thomas-scan tridiagonal solves (solved axis leading, so the big
-line/batch dims stay in TPU-tiled positions). This unlocks the exact pressure Schur-complement CG for
-the Darcy problem (physics/darcy.py "cg-schur"): the reference needs AMG
+batched tridiagonal line solves (ops/tridiag.py). This unlocks the exact
+pressure Schur-complement CG for the Darcy problem (physics/darcy.py "cg-schur"): the reference needs AMG
 preconditioners because its meshes are unstructured; on tensor grids the
 velocity block is directly invertible.
 
@@ -26,9 +25,9 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-import jax
 
 from parelagmc_tpu.fem.assembly import MixedLevel
+from parelagmc_tpu.ops.tridiag import prepare_lines, resolve_route, solve_prepared
 
 
 class _AxisData(NamedTuple):
@@ -75,112 +74,11 @@ def build_line_tables(m_lo, m_mid, m_hi, ess, w, ess_prev=None, ess_next=None):
     return dl, diag, du
 
 
-def _thomas_solve(dl, d, du, b):
-    """Batched Thomas algorithm for tridiagonal systems along the LAST axis.
-
-    dl/d/du broadcast against b over the leading (line/batch) dims. TPU
-    layout note: jax.lax.linalg.tridiagonal_solve wants the solved axis at
-    -2 and a num-rhs axis at -1; with one rhs per line that trailing
-    singleton is padded to a full 128 lane tile (measured 130x memory
-    expansion at SPE10 scale - OOM at batch 64). Scanning over the solved
-    axis placed FIRST keeps the big line/batch dims in the tiled positions
-    instead. The systems are SPD and diagonally dominant (RT0 mass lines),
-    so no pivoting is needed.
-    """
-    move = lambda x: jnp.moveaxis(jnp.broadcast_to(x, b.shape), -1, 0)
-    dl_s, d_s, du_s, b_s = move(dl), move(d), move(du), move(b)
-
-    # Forward sweep: c'_i = du_i / (d_i - dl_i c'_{i-1});
-    #                g_i = (b_i - dl_i g_{i-1}) / (d_i - dl_i c'_{i-1}).
-    def fwd(carry, row):
-        c_prev, g_prev = carry
-        dl_i, d_i, du_i, b_i = row
-        denom = d_i - dl_i * c_prev
-        c_i = du_i / denom
-        g_i = (b_i - dl_i * g_prev) / denom
-        return (c_i, g_i), (c_i, g_i)
-
-    zero = jnp.zeros_like(b_s[0])
-    (_, _), (c, g) = jax.lax.scan(fwd, (zero, zero), (dl_s, d_s, du_s, b_s))
-
-    # Back substitution: x_i = g_i - c'_i x_{i+1}.
-    def bwd(x_next, row):
-        c_i, g_i = row
-        x_i = g_i - c_i * x_next
-        return x_i, x_i
-
-    _, xs = jax.lax.scan(bwd, zero, (c, g), reverse=True)
-    return jnp.moveaxis(xs, 0, -1)
-
-
-def _pscan_solve(dl, d, du, b):
-    """Tridiagonal solve along the LAST axis via log-depth associative
-    scans (the parallel-cyclic-reduction analog, ~log2(m) composition
-    steps instead of m sequential ones - decisive inside SPE10-scale
-    Krylov loops where the 220-step Thomas sweep is pure latency).
-
-    Same recurrences as _thomas_solve, recast associatively:
-    * the forward-elimination multiplier c_i = du_i / (d_i - dl_i c_{i-1})
-      is a Mobius transform of c_{i-1} -> cumulative 2x2 projective matrix
-      products (normalized against overflow),
-    * the forward/backward substitutions are affine recursions
-      g_i = a_i g_{i-1} + b_i -> cumulative affine composition.
-    SPD diagonally-dominant lines (RT0 mass): |multipliers| < 1, stable.
-
-    Measured at SPE10 scale (batch 8): 2.8x slower than the Thomas scan
-    (each sequential Thomas step already sweeps >15k independent lines in
-    parallel), so this is an opt-in for small-line/huge-batch shapes only.
-    """
-    import jax
-
-    bc = lambda x: jnp.broadcast_to(x, b.shape)
-    dl_, d_, du_ = bc(dl), bc(d), bc(du)
-    ax = b.ndim - 1  # positive axis index (reverse=True rejects -1)
-
-    def mobius(x, y):  # M_y @ M_x, projectively normalized
-        a1, b1, c1, d1 = x
-        a2, b2, c2, d2 = y
-        a = a2 * a1 + b2 * c1
-        bb = a2 * b1 + b2 * d1
-        c = c2 * a1 + d2 * c1
-        dd = c2 * b1 + d2 * d1
-        s = jnp.maximum(
-            jnp.maximum(jnp.abs(a), jnp.abs(bb)),
-            jnp.maximum(jnp.abs(c), jnp.abs(dd)),
-        )
-        s = jnp.where(s == 0, 1.0, s)
-        return a / s, bb / s, c / s, dd / s
-
-    _, B, _, D = jax.lax.associative_scan(
-        mobius, (jnp.zeros_like(d_), du_, -dl_, d_), axis=ax
-    )
-    c = B / jnp.where(D == 0, 1.0, D)  # applied to v_{-1} = (0, 1)
-    c_prev = jnp.concatenate(
-        [jnp.zeros_like(c[..., :1]), c[..., :-1]], axis=-1
-    )
-    denom = d_ - dl_ * c_prev
-    denom = jnp.where(denom == 0, 1.0, denom)
-
-    def affine(x, y):  # y after x
-        a1, b1 = x
-        a2, b2 = y
-        return a2 * a1, a2 * b1 + b2
-
-    _, g = jax.lax.associative_scan(
-        affine, (-dl_ / denom, b / denom), axis=ax
-    )
-    _, x = jax.lax.associative_scan(affine, (-c, g), axis=ax, reverse=True)
-    return x
-
-
 class MassTridiagSolver(NamedTuple):
     axes: Tuple[_AxisData, ...]
     shape: Tuple[int, ...]  # cells per mesh axis (x first)
     face_offsets: Tuple[int, ...]
     n_u: int
-    use_scan: bool = False  # Thomas scan vs tridiagonal_solve
-    use_pscan: bool = False  # log-depth associative-scan solve (big grids)
-    use_pallas: bool = False  # fused single-kernel Thomas (TPU, big grids)
 
     def __call__(self, w: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
         """z = M(w)^{-1} rhs, batched over leading dims of w/rhs."""
@@ -192,24 +90,23 @@ class MassTridiagSolver(NamedTuple):
 
         Factor ONCE per Krylov solve and reuse via apply_factored: the
         tables depend only on w, and XLA does not hoist their construction
-        out of a lax.while_loop body (it does hoist/CSE them in unrolled
-        chains, which is why isolated chain profiles barely move). Measured
-        end-to-end by iteration differencing at SPE10 level 0, batch 16
-        (examples/spe10_iter_cost.py): hoisting the factor + the MG Jacobi
-        diagonals out of the Schur-CG loop cut the real per-iteration cost
-        from 50.2 to 45.8 ms.
+        out of a lax.while_loop body. The line-solve route is resolved from
+        the per-sample cell count (ops/tridiag.resolve_route), so every
+        batch size of one level takes the same route.
         """
         d = len(self.shape)
         batch = w.shape[:-1]
         nb = len(batch)
         wg = w.reshape(batch + tuple(self.shape[::-1]))  # (..., z, y, x)
+        route = resolve_route(int(np.prod(self.shape)), w.dtype)
         factors = []
         for a in range(d):
             ax = self.axes[a]
             w_a = jnp.transpose(wg, tuple(range(nb)) + tuple(nb + p for p in ax.perm_cell))
-            factors.append(
-                build_line_tables(ax.m_lo, ax.m_mid, ax.m_hi, ax.ess, w_a)
-            )
+            factors.append(prepare_lines(
+                *build_line_tables(ax.m_lo, ax.m_mid, ax.m_hi, ax.ess, w_a),
+                route,
+            ))
         return tuple(factors)
 
     def apply_factored(self, factors, rhs: jnp.ndarray) -> jnp.ndarray:
@@ -220,39 +117,12 @@ class MassTridiagSolver(NamedTuple):
         outs = []
         for a in range(d):
             ax = self.axes[a]
-            dl, diag, du = factors[a]
             fshape = list(self.shape)
             fshape[a] += 1
             r = rhs[..., self.face_offsets[a]: self.face_offsets[a + 1]]
             r = r.reshape(batch + tuple(fshape[::-1]))
             r = jnp.transpose(r, tuple(range(nb)) + tuple(nb + p for p in ax.perm_face))
-            if self.use_pallas:
-                # Whole Thomas recurrence fused into one Pallas program
-                # (VMEM-resident carries; see ops/tridiag_pallas.py).
-                from parelagmc_tpu.ops.tridiag_pallas import (
-                    tridiag_thomas_pallas,
-                )
-
-                z = tridiag_thomas_pallas(dl, diag, du, r)
-            elif self.use_pscan:
-                # Log-depth associative scans along the (last-axis) line.
-                z = _pscan_solve(dl, diag, du, r)
-            elif self.use_scan:
-                # Thomas scan: no trailing-singleton lane padding (130x
-                # expansion measured at SPE10 scale, OOM at batch 64).
-                z = _thomas_solve(dl, diag, du, r)
-            else:
-                # Small grids: the parallel primitive wins over the scan's
-                # sequential latency despite the padded num-rhs lane.
-                from jax.lax.linalg import tridiagonal_solve
-
-                bshape = r.shape[:-1] + (r.shape[-1],)
-                z = tridiagonal_solve(
-                    jnp.broadcast_to(dl, bshape),
-                    jnp.broadcast_to(diag, bshape),
-                    jnp.broadcast_to(du, bshape),
-                    r[..., None],
-                )[..., 0]
+            z = solve_prepared(factors[a], r)
             inv = np.argsort(ax.perm_face)
             z = jnp.transpose(z, tuple(range(nb)) + tuple(nb + p for p in inv))
             outs.append(z.reshape(batch + (-1,)))
@@ -323,18 +193,4 @@ def build_mass_tridiag_solver(
         shape=shape,
         face_offsets=tuple(int(x) for x in mesh.face_offsets),
         n_u=lvl.n_u,
-        # Above ~32k cells the tridiagonal_solve num-rhs lane padding costs
-        # more memory/bandwidth than the scan's sequential latency. The
-        # log-depth associative-scan variant (use_pscan) measured 2.8x
-        # SLOWER than Thomas at SPE10 scale (55.6 vs 19.8 ms/solve, batch
-        # 8): each Thomas step already processes >15k lines in parallel,
-        # so the scan's extra flops/traffic buy nothing - it stays an
-        # opt-in for small-line/huge-batch shapes. On an accelerator the
-        # fused Pallas kernel (ops/tridiag_pallas.py) replaces the scan:
-        # one program instead of ~2n HLO loop steps.
-        use_scan=int(np.prod(shape)) > 32768,
-        use_pallas=(
-            int(np.prod(shape)) > 32768
-            and jax.default_backend() not in ("cpu",)
-        ),
     )

@@ -1,6 +1,6 @@
 """Geometric multigrid V-cycle preconditioner.
 
-The TPU-native replacement for hypre BoomerAMG/ADS/AMS (reference solver
+The batched replacement for hypre BoomerAMG/ADS/AMS (reference solver
 configs, e.g. src/PDESampler_Legacy.cpp:210-235): the MLMC hierarchy already
 provides nested levels with exact finite-element transfer operators, so the
 preconditioner is a Galerkin-quality geometric V-cycle built entirely from
@@ -10,7 +10,7 @@ precomputed static ELL operators:
   for unit coefficients by nestedness - tests/test_fem.py),
 * damped-Jacobi smoothing (symmetric: same sweeps pre and post, so the
   V-cycle is an SPD operator and a valid CG preconditioner),
-* dense coarsest-level inverse applied as a batched matmul (MXU-friendly).
+* dense coarsest-level inverse applied as a batched matmul.
 
 The recursion over levels is a Python loop over a static tuple, unrolled at
 trace time - no dynamic control flow.
@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from parelagmc_tpu.ops.ell import ELL, ell_apply, pack_csr_to_ell
@@ -237,10 +238,10 @@ def build_mg_hierarchy(
 
 
 def _line_update(ln: LineSmoother, x: jnp.ndarray, r: jnp.ndarray):
-    from parelagmc_tpu.ops.mass_solve import _thomas_solve
+    from parelagmc_tpu.ops.tridiag import solve_lines
 
     rl = jnp.take(r, ln.perm, axis=-1).reshape(r.shape[:-1] + ln.d.shape)
-    z = _thomas_solve(ln.dl, ln.d, ln.du, rl).reshape(r.shape)
+    z = solve_lines(ln.dl, ln.d, ln.du, rl).reshape(r.shape)
     return x + ln.omega * jnp.take(z, ln.iperm, axis=-1)
 
 
@@ -276,14 +277,13 @@ def v_cycle(
     """One V(sweeps, sweeps) cycle applied to b (zero initial guess)."""
     if level == len(mg.levels):
         if mg.coarse_sweeps > 0:
-            # Jacobi sweeps at the coarsest (dense matmuls inside lax loop
-            # bodies have crashed the TPU worker at scale; see CLAUDE.md).
+            # Jacobi sweeps at the coarsest (config.mg_coarse_sweeps).
             x = mg.omega * mg.coarse_inv_diag * b
             for _ in range(mg.coarse_sweeps - 1):
                 x = x + mg.omega * mg.coarse_inv_diag * (b - ell_apply(mg.coarse_A, x))
             return x
         # Coarsest: dense solve via batched matmul.
-        return b @ mg.coarse_inv.T
+        return jnp.matmul(b, mg.coarse_inv.T, precision=lax.Precision.HIGHEST)
     lvl = mg.levels[level]
     x = _smooth(lvl, jnp.zeros_like(b), b, sweeps, mg.omega)
     r = b - ell_apply(lvl.A, x)

@@ -3,7 +3,7 @@
 These replace the reference's runtime SolverLibrary (hypre MINRES/CG with
 AMG-type preconditioners, selected by name from the XML Preconditioner
 Library - reference: src/PDESampler.cpp:286-317, src/DarcySolver.cpp:562-649).
-On TPU the economics are different: one Krylov iteration applied to a
+On an accelerator the economics are different: one Krylov iteration applied to a
 *batch* of right-hand sides costs barely more than to one, so we run all
 samples of a batch through the same fixed-shape iteration and mask
 converged columns instead of stopping them individually (SURVEY.md 7.3
@@ -91,8 +91,7 @@ def pcg(
         if restart_every > 0:
             # lax.cond, not jnp.where: the true-residual recompute must only
             # execute on restart iterations (an extra apply_A every iteration
-            # would double the loop cost - and at SPE10 scale push single
-            # executions past the TPU worker's duration limit, see CLAUDE.md).
+            # would double the loop cost).
             do_restart = (it + 1) % restart_every == 0
             r = jax.lax.cond(do_restart, lambda: b - apply_A(x), lambda: r)
         z = prec(r)

@@ -19,14 +19,14 @@ B = sum_a (1D difference) x (identities). Hence the symmetrized operator
 where each H_a = h_a^{-1/2} d_a t_a^{-1} d_a^T h_a^{-1/2} is a *purely 1D*
 symmetric PSD matrix (t_a = 1D face mass tridiagonal after boundary-condition
 elimination, d_a = 1D signed difference). Diagonalizing H_a = V_a L_a V_a^T
-on the host turns S^{-1} into per-axis dense matmuls (MXU work) plus one
+on the host turns S^{-1} into per-axis dense matmuls plus one
 diagonal scale:
 
     S^{-1} = W^{-1/2} (x)V_a  diag(alpha + sum L_a)^{-1}  (x)V_a^T  W^{-1/2}.
 
 This is an *exact* solve of the same discrete system the reference solves
 iteratively per sample (MINRES-BJ-GS or hybridization+AMG,
-/root/reference/src/PDESampler.cpp:286-317,379-400) - the TPU-first
+src/PDESampler.cpp:286-317,379-400 of the reference) - the batched-matmul
 replacement: no per-sample Krylov iterations, deterministic cost, batched
 trivially. It covers every tensor-grid configuration in the reference
 (golden tests, SPE10, Egg, embedded boxes). Non-tensor meshes fall back to
@@ -44,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from parelagmc_tpu.mesh.structured import StructuredMesh
 
@@ -185,11 +186,15 @@ def tensor_marginal_std(eig: TensorEig, g: float) -> np.ndarray:
     return g * np.sqrt(np.maximum(z.reshape(-1), 0.0) / w)
 
 
-def _transform(x: jnp.ndarray, mats: Sequence[jnp.ndarray], shape, transpose: bool):
+def _transform(x: jnp.ndarray, mats: Sequence[jnp.ndarray], shape, transpose: bool,
+               precision=lax.Precision.HIGHEST):
     """Apply the per-axis orthogonal transforms to (..., n_s) cell vectors.
 
     `x` is flattened x-fastest; reshaped to (..., n_d, ..., n_1) so axis 0
-    (x) is the last array dimension.
+    (x) is the last array dimension. `precision` defaults to HIGHEST: a
+    float32 product at DEFAULT precision may run in TF32 on the GPU, which
+    keeps ~3 decimal digits of the field (chip_smoke.py's sampler phase
+    measures both against a float64 host oracle).
     """
     d = len(shape)
     batch = x.shape[:-1]
@@ -200,18 +205,20 @@ def _transform(x: jnp.ndarray, mats: Sequence[jnp.ndarray], shape, transpose: bo
         M = mats[a] if not transpose else mats[a].T
         # contract: z[..., i, ...] M[i, m] -> move axis to last, matmul, move back.
         z = jnp.moveaxis(z, dim, -1)
-        z = z @ M
+        z = jnp.matmul(z, M, precision=precision)
         z = jnp.moveaxis(z, -1, dim)
     return z.reshape(batch + (int(np.prod(shape)),))
 
 
-def tensor_solve(eig: TensorEig, b: jnp.ndarray) -> jnp.ndarray:
+def tensor_solve(eig: TensorEig, b: jnp.ndarray,
+                 precision=lax.Precision.HIGHEST) -> jnp.ndarray:
     """s = S^{-1} b for (..., n_s) right-hand sides."""
     z = b / eig.w_sqrt
-    z = _transform(z, eig.V, eig.shape, transpose=False)  # V^T along each axis
+    # V^T along each axis, modal scale, V along each axis.
+    z = _transform(z, eig.V, eig.shape, transpose=False, precision=precision)
     lam = eig.lam.reshape(-1)
     z = z / lam
-    z = _transform(z, eig.V, eig.shape, transpose=True)  # V along each axis
+    z = _transform(z, eig.V, eig.shape, transpose=True, precision=precision)
     return z / eig.w_sqrt
 
 

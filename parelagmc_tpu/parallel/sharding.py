@@ -13,15 +13,15 @@ explicit), runs the full realization pipeline locally (all operators are
 replicated constants), and the manager receives globally-batched arrays.
 Cross-device moment reductions (jnp.sum over the sharded batch inside a
 jitted consumer, or host-side accumulation after gather) lower to ICI
-collectives / gathers inserted by XLA.
+collectives / gathers inserted by XLA (NCCL on GPUs).
 
 Spatial sharding of one realization's dof vector (the analog of the
 reference's domain decomposition) lives in parallel/spatial_darcy.py
 (SpatialDarcy: the real Darcy Schur solve sharded along the mesh y axis,
 built from a DarcySolver level) with the generic-CSR prototype in
-parallel/spatial.py; it matters when a single fine level exceeds per-chip
-memory (SURVEY.md 5.7, e.g. the SPE10 finest level, HBM-capped near batch
-8 on a 16G chip). It is reachable from the config surface
+parallel/spatial.py; it matters when a single fine level exceeds one
+device's memory (SURVEY.md 5.7, e.g. a refined SPE10 finest level). It is
+reachable from the config surface
 (config.darcy_solver.spatial_shards routes the finest Darcy level through
 the sharded solver; spatial_sample_shards composes a 2D (dp, sp) mesh
 sharding the batch as well) - note SampleMesh's own dp shard_map cannot

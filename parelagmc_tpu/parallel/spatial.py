@@ -4,9 +4,10 @@ The reference's "model parallel" axis: the mesh is partitioned across MPI
 ranks (mfem::ParMesh), dof ownership tracked by ParELAG SharingMaps, and
 every SpMV/Krylov step is a collective with halo exchange
 (/root/reference/src/PDESampler.cpp:395-398, src/DarcySolver.cpp:651-675).
-SURVEY.md section 5.7: on TPU this axis is only needed when a single fine
-level no longer fits (or no longer saturates) one chip; sample batching
-stays the primary axis. This module supplies the TPU-native equivalent:
+SURVEY.md section 5.7: on accelerators this axis is only needed when a
+single fine level no longer fits (or no longer saturates) one device;
+sample batching stays the primary axis. This module supplies the
+equivalent:
 
 * Setup (host): renumber dofs into contiguous slabs of a 1D spatial
   partition (any contiguous-by-coordinate order works; callers pass a slab
@@ -17,7 +18,7 @@ stays the primary axis. This module supplies the TPU-native equivalent:
   above], plus the static send-index lists.
 
 * Runtime (device, inside shard_map over the "sp" axis): halo exchange is
-  two `ppermute` shifts (up/down neighbors over ICI) of statically-shaped,
+  two `ppermute` shifts (up/down neighbors) of statically-shaped,
   padded boundary buffers - the SharingMap::Distribute analog; dot
   products in the sharded PCG are `psum` over the axis - the
   MPI_Allreduce analog. Everything is static shapes and static collective
@@ -25,13 +26,13 @@ stays the primary axis. This module supplies the TPU-native equivalent:
   communication survives to runtime).
 
 Validated against the unsharded solve on the virtual 8-device CPU mesh
-(tests/test_spatial.py) - the TPU analog of oversubscribed mpirun.
+(tests/test_spatial.py) - the analog of oversubscribed mpirun.
 
 This generic-CSR form is the prototype / oracle; the PRODUCTION spatial
 axis is parallel/spatial_darcy.SpatialDarcy (tensor-grid Darcy Schur CG
 with exact SPIKE line solves and the two-level Schwarz coefMG), reachable
-from config.darcy_solver.spatial_shards and measured in
-SPATIAL_EVIDENCE.json.
+from config.darcy_solver.spatial_shards and measured by
+examples/spatial_scaling.py.
 """
 
 from __future__ import annotations

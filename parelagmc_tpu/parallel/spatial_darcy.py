@@ -7,8 +7,8 @@ and runs every matvec/solve as a collective with halo exchange
 SharingMap Assemble/Distribute). Round 2 shipped a generic-CSR prototype
 (parallel/spatial.py); this module integrates the axis with the REAL
 structured Darcy operators (VERDICT r2 item 3), so the SPE10 finest level
-(4.5M dofs, HBM-capped near batch 8 on a 16G chip) can spread one
-realization's solve state over the 'sp' axis of a TPU mesh.
+(4.5M dofs, and 8x that refined once) can spread one realization's
+solve state over the 'sp' axis of a device mesh.
 
 Design (tensor-native, no translated SharingMaps):
 
@@ -38,7 +38,7 @@ Design (tensor-native, no translated SharingMaps):
   plus a replicated global coarse correction grafted at the deepest
   pair-aligned slab level (one small all_gather per iteration). Measured
   at synthetic-SPE10 contrast on (60,110,42)/8 shards
-  (SPATIAL_EVIDENCE.json, examples/spatial_scaling.py): 50 iterations vs
+  (examples/spatial_scaling.py): 50 iterations vs
   45 replicated coefMG at rtol 1e-5 with the SAME deep-truth QoI error
   (2.6e-2 vs 3.0e-2 - both are loose-rtol Krylov error; rtol 1e-7 costs
   90 iterations and lands at 4.4e-4), where slab-Jacobi needs 277
@@ -83,7 +83,7 @@ def spike_tridiag_factor(dl, d, du, axis_name: str, n_sp: int):
     """
     from jax.scipy.linalg import lu_factor
 
-    from parelagmc_tpu.ops.mass_solve import _thomas_solve
+    from parelagmc_tpu.ops.tridiag import solve_lines
 
     # Decouple the chunk: interior tridiag drops the cross-shard couplings.
     dl_in = dl.at[..., 0].set(0.0)
@@ -91,7 +91,7 @@ def spike_tridiag_factor(dl, d, du, axis_name: str, n_sp: int):
     # Boundary spikes: local solves against the cross-shard couplings.
     e_lo = jnp.zeros_like(d).at[..., 0].set(1.0) * dl[..., :1]
     e_hi = jnp.zeros_like(d).at[..., -1].set(1.0) * du[..., -1:]
-    sol = _thomas_solve(dl_in[None], d[None], du_in[None],
+    sol = solve_lines(dl_in[None], d[None], du_in[None],
                         jnp.stack([e_lo, e_hi], axis=0))
     v, w = sol[0], sol[1]
 
@@ -125,10 +125,10 @@ def spike_tridiag_apply(factors, b, axis_name: str, n_sp: int):
     (redundant per shard), spike combination."""
     from jax.scipy.linalg import lu_solve
 
-    from parelagmc_tpu.ops.mass_solve import _thomas_solve
+    from parelagmc_tpu.ops.tridiag import solve_lines
 
     dl_in, d, du_in, v, w, lu = factors
-    xd = _thomas_solve(dl_in, d, du_in, b)
+    xd = solve_lines(dl_in, d, du_in, b)
     tips = jnp.stack([xd[..., 0], xd[..., -1]], axis=-1)  # (..., 2)
     allt = jax.lax.all_gather(tips, axis_name)  # (n_sp, ..., 2)
     ns2 = 2 * n_sp
@@ -257,7 +257,7 @@ class SpatialDarcy:
         if self.n_dp > 1:
             # Composed sample x spatial parallelism: the device mesh is
             # (dp, sp); the sample batch shards over dp while each
-            # realization's grid shards over sp (the TPU analog of
+            # realization's grid shards over sp (the analog of
             # "several MPI jobs, each domain-decomposed").
             dev = np.asarray(devices[: n_dp * n_sp]).reshape(n_dp, n_sp)
             self.mesh_dev = Mesh(dev, (sample_axis, axis))
@@ -588,14 +588,14 @@ class SpatialDarcy:
     def _minv_apply(self, factors, r):
         """Exact M(w)^{-1} on the face-grid triple r = (rx, ry, rz) for
         tables built by _minv_factor."""
-        from parelagmc_tpu.ops.mass_solve import _thomas_solve
+        from parelagmc_tpu.ops.tridiag import solve_lines
 
         fx, fy, fz = factors
         rx, ry, rz = r
-        zx = _thomas_solve(*fx, rx)
+        zx = solve_lines(*fx, rx)
         mv = lambda t: jnp.moveaxis(t, -3, -1)
         vm = lambda t: jnp.moveaxis(t, -1, -3)
-        zz = vm(_thomas_solve(*fz, mv(rz)))
+        zz = vm(solve_lines(*fz, mv(rz)))
         my = lambda t: jnp.moveaxis(t, -2, -1)
         zy = jnp.moveaxis(
             spike_tridiag_apply(fy, my(ry), self.axis, self.n_sp), -1, -2
@@ -661,7 +661,7 @@ class SpatialDarcy:
         )
         def cast(st):
             # Reduced-precision preconditioner state (coefmg_prec_dtype):
-            # bf16 tables halve the V-cycle's HBM bytes; CG stays in the
+            # bf16 tables halve the V-cycle's bytes; CG stays in the
             # solve dtype (oracle: tests/test_darcy.py bf16 test).
             if self.mg_prec_dtype is None:
                 return st
@@ -999,7 +999,7 @@ class SpatialDarcy:
         spatial analog of DarcySolver.solve_fwd_warm); with adjoint=True
         the QoI is goal-oriented-corrected (config.adjoint_qoi) and lam0
         optionally warm-starts the adjoint solve (lam returned after p).
-        The per-shard HBM footprint of all solver state is ~1/n_sp of the
+        The per-shard memory footprint of all solver state is ~1/n_sp of the
         unsharded solve's; with n_dp > 1 the batch additionally shards
         over the sample axis."""
         from jax import shard_map

@@ -1,6 +1,6 @@
 """Mixed Darcy forward model with per-sample permeability.
 
-TPU-native analog of the reference's DarcySolver
+Batched JAX analog of the reference's DarcySolver
 (/root/reference/src/DarcySolver.{hpp,cpp}): per realization of the
 coefficient field w (the velocity mass weight - the reference passes the
 sampler output directly to ComputeMassOperator(uform, k),
@@ -79,9 +79,9 @@ class DarcyLevel(NamedTuple):
     coef_mg: object = None  # Optional[CoefMG]: per-sample Galerkin Schur MG
     # Structured-incidence tables (tensor meshes): (shape, face_offsets,
     # per-axis float masks in face-grid layout). B/B^T become zero-padded
-    # difference stencils (slices) instead of gathers - measured ~50x
-    # cheaper at SPE10 level 0, where 3.4M-index takes defeat the TPU
-    # vectorizer (same finding as ops/coef_multigrid_structured.py).
+    # difference stencils (slices) instead of gathers: contiguous slices
+    # vectorize where 3.4M-index takes at SPE10 level 0 do not (same
+    # reasoning as ops/coef_multigrid_structured.py).
     b_struct: object = None
 
 
@@ -155,9 +155,8 @@ def _build_coef_mg_level(mesh, ess, dtype, solver_cfg, kinv=None):
     coefficient enters at solve time through the masked mass diagonal.
 
     Tensor-product meshes get the slicing-only specialization
-    (ops/coef_multigrid_structured.py - measured ~50x cheaper V-cycles
-    at SPE10 level 0 than the gather formulation, which defeats the TPU
-    vectorizer at millions of faces); coefmg_impl="gather" forces the
+    (ops/coef_multigrid_structured.py - static slices instead of gathers
+    at millions of faces); coefmg_impl="gather" forces the
     generic tables (oracle / benchmarking)."""
     impl = getattr(solver_cfg, "coefmg_impl", "auto")
     if impl != "gather" and hasattr(mesh, "axes"):
@@ -203,7 +202,7 @@ def _build_schur_mg(
 ):
     """Geometric multigrid hierarchy on S_bar: derefine below the MLMC level
     as far as needed, rediscretizing the coefficient by volume-weighted
-    averaging, until the coarsest grid is dense-invertible. The TPU-native
+    averaging, until the coarsest grid is dense-invertible. The batched
     replacement for the reference's per-sample BoomerAMG on heterogeneous
     media (src/DarcySolver.cpp:562-649)."""
     from parelagmc_tpu.fem.hierarchy import axis_parent_map, derefine_axis
@@ -386,7 +385,7 @@ class DarcySolver:
         # The full mass ELL is only applied by the saddle-system (MINRES)
         # path; the Schur-CG family inverts M(w) by the tridiagonal line
         # solver and reads only the diagonal structure. Skipping the ELL
-        # saves ~160 MB HBM at SPE10 scale (cols+vals+cells at 3.4M faces
+        # saves ~160 MB of device memory at SPE10 scale (cols+vals+cells at 3.4M faces
         # x width 4; VERDICT r2 item 2).
         need_m_op = not config.darcy_solver.name.startswith("cg-schur")
         for l, lvl in enumerate(hierarchy.levels):
@@ -513,7 +512,7 @@ class DarcySolver:
         n_spatial = int(getattr(self.solver_cfg, "spatial_shards", 0) or 0)
         if n_spatial > 1 and self.solver_cfg.name == "minres-bj":
             # Silently falling back to the replicated solve would defeat
-            # the reason spatial_shards exists (HBM at SPE10 scale).
+            # the reason spatial_shards exists (device memory at scale).
             raise ValueError(
                 "spatial_shards requires a cg-schur-family solver; "
                 "minres-bj solves the full saddle system replicated"
@@ -769,39 +768,45 @@ class DarcySolver:
         perturbation, so the initial energy error shrinks by the
         perturbation's share (measured: 24-37% fewer iterations on
         synthetic-SPE10 levels). The setup solve is continued across
-        bounded executions like the managers' segmented paths, so it
-        stays inside the TPU worker's execution-duration limit at SPE10
-        scale (CLAUDE.md). Cached arrays surface as jaxpr consts and are
+        bounded executions like the managers' segmented paths. Cached arrays surface as jaxpr consts and are
         hoisted to runtime arguments by ops.jit_utils.jit_hoisted, not
-        embedded in compiled modules. The setup runs under
+        embedded in compiled modules.
+
+        The setup solve is one hoisted program (and a continuation program
+        only if a segment is needed), traced normally and RUN under
         jax.ensure_compile_time_eval(): the first solve_fwd call is often
         itself being traced (jit_hoisted managers), and this setup is
         constant w.r.t. the traced inputs - without the escape the host-side
-        convergence check would hit a tracer."""
+        convergence check would hit a tracer. Tracing the solve itself
+        under the escape would run it op by op instead: one small compile
+        per operation, none of them kept by the persistent cache."""
         if level in self._mf_cache:
             return self._mf_cache[level]
+        from parelagmc_tpu.ops.jit_utils import jit_hoisted
+
         L = self.levels[level]
         adjoint = getattr(self.solver_cfg, "adjoint_qoi", False)
-        from parelagmc_tpu.ops.tridiag_pallas import force_scan
 
-        # force_scan: Pallas kernels cannot trace under compile-time eval
-        # (captured-constant rejection; see ops/tridiag_pallas.py). The
-        # scan path costs more on this ONE-TIME setup solve only.
-        with jax.ensure_compile_time_eval(), force_scan():
-            ones = jnp.ones((1, L.n_s), dtype=self.dtype)
+        def solve(w, x0=None, lam0=None):
             out = self._solve_cg_schur(
-                L, ones, True, return_adjoint=adjoint
+                L, w, True, x0=x0, lam0=lam0, return_adjoint=adjoint
             )
-            info, p = out[2], out[3]
-            lam = out[4] if adjoint else None
-            for _ in range(15):
-                if bool(np.asarray(info.converged).all()):
-                    break
-                out = self._solve_cg_schur(
-                    L, ones, True, x0=p, lam0=lam, return_adjoint=adjoint
-                )
-                info, p = out[2], out[3]
-                lam = out[4] if adjoint else None
+            return out[2].converged, out[3], out[4] if adjoint else None
+
+        def run(program, *args):
+            with jax.ensure_compile_time_eval():
+                return program(*args)
+
+        ones = np.ones((1, L.n_s), dtype=self.dtype)
+        conv, p, lam = run(jit_hoisted(solve, ones), ones)
+        cont = None
+        for _ in range(15):
+            if bool(np.asarray(conv).all()):
+                break
+            if cont is None:
+                cont = jit_hoisted(solve, ones, p, lam)
+            conv, p, lam = run(cont, ones, p, lam)
+        with jax.ensure_compile_time_eval():
             # Index INSIDE the compile-time-eval scope: outside it, p[0] on
             # the concrete result would create a tracer of the ambient jit
             # trace, and caching that tracer leaks it into every later
@@ -815,8 +820,8 @@ class DarcySolver:
     # -- spatial domain decomposition (config spatial_shards) ------------------
     def _use_spatial(self, level: int) -> bool:
         """Route this level through the spatially-sharded solver? Finest
-        level only: that is where HBM binds (SPE10 level 0 caps near batch
-        8 on a 16G chip, CLAUDE.md); coarser levels are cheap replicated."""
+        level only: that is where device memory binds at SPE10 scale;
+        coarser levels are cheap replicated."""
         return (
             int(getattr(self.solver_cfg, "spatial_shards", 0) or 0) > 1
             and level == 0
@@ -832,7 +837,7 @@ class DarcySolver:
         name: cg-schur-coefmg gets the two-level Schwarz slab coefMG
         (iterations near the replicated coefMG path - 50 vs 45 measured
         at synthetic-SPE10 contrast on (60,110,42)/8 shards, same
-        deep-truth QoI error; SPATIAL_EVIDENCE.json); other
+        deep-truth QoI error; examples/spatial_scaling.py); other
         cg-schur variants get local-sqrt(w)-scaled diag(S_bar) Jacobi,
         adequate only at modest contrast. Exists for the levels that do
         not FIT replicated."""
@@ -952,9 +957,8 @@ class DarcySolver:
         """Fine solve warm-started from the level+1 physical pressure (as
         returned by solve_fwd(..., return_pressure=True)). Exposed
         separately from solve_fwd_pair so SPE10-scale callers can run the
-        coarse and fine solves as TWO device programs: a single composed
-        execution at 4.5M dofs exceeds the TPU worker's execution-duration
-        limit (see CLAUDE.md). Returns (Q, cost, info[, p])."""
+        coarse and fine solves as TWO bounded device programs
+        (config.split_pair_programs). Returns (Q, cost, info[, p])."""
         # P0 prolongation: fine cell takes its parent's physical pressure
         # (exact piecewise-constant embedding); _solve_cg_schur converts to
         # its internal p~ = -p convention.
@@ -989,8 +993,7 @@ class DarcySolver:
         pressure iterate (as returned with return_pressure=True). Segment
         long Krylov solves across device executions: chain
         solve_fwd_x0(level, w, p_prev) until info.converged - each call is
-        one bounded execution (max_iterations), sidestepping the TPU
-        worker's execution-duration limit at SPE10 scale (CLAUDE.md).
+        one bounded execution (max_iterations; config.solve_segments).
         CG restarts at segment boundaries cost little: float32 runs
         restart the direction every restart_every iterations anyway."""
         if self._use_spatial(level):
@@ -1019,16 +1022,14 @@ class DarcySolver:
         g = jnp.broadcast_to(L.rhs[L.n_u:], batch + (L.n_s,))
         # Factor the tridiagonal mass tables ONCE per solve: XLA does not
         # hoist their (loop-invariant) construction out of the CG
-        # while_loop body. Together with the precomputed MG Jacobi
-        # diagonals below, measured 50.2 -> 45.8 ms per real Schur-CG
-        # iteration at SPE10 level 0, batch 16 (examples/spe10_iter_cost.py).
+        # while_loop body (nor the MG Jacobi diagonals below).
         mass_fac = L.mass_solver.factor(w)
         Minv = lambda r: L.mass_solver.apply_factored(mass_fac, r)
         rhs_s = self._apply_B(L, Minv(f)) - g
         if L.coef_mg is not None:
             # Per-sample Galerkin MG: the hierarchy's entire coefficient
             # dependence is the per-level dinv face vectors, computed once
-            # per solve from this sample's masked mass diagonal (the TPU
+            # per solve from this sample's masked mass diagonal (the batched
             # analog of the reference's per-sample BoomerAMG setup,
             # src/DarcySolver.cpp:562-649). See ops/coef_multigrid.py and
             # the structured slicing specialization in
@@ -1043,7 +1044,7 @@ class DarcySolver:
             diag_w = L.m_diag(w)
             dinv0 = jnp.where(diag_w > 0, 1.0 / jnp.where(diag_w == 0, 1.0, diag_w), 0.0)
             # Optional reduced-precision preconditioner state: the V-cycle
-            # is HBM-bandwidth-bound, so bf16 tables + bf16 residual math
+            # is bound by memory bandwidth, so bf16 tables + bf16 residual math
             # halve its bytes; the CG iteration itself stays in the solve
             # dtype (config.coefmg_prec_dtype).
             pdt = getattr(self.solver_cfg, "coefmg_prec_dtype", "")
@@ -1146,11 +1147,10 @@ class DarcySolver:
             # solve S [p~, lam] = [rhs_s, q_s] as ONE batched PCG over a new
             # rhs axis (-2), vmapping the existing operator/preconditioner
             # closures so the per-sample state (tridiagonal mass factors,
-            # coefMG dinv/idiag hierarchies) is streamed from HBM ONCE per
-            # iteration for both systems instead of once per solve. The
-            # Schur solve is HBM-bandwidth-bound on TPU (CLAUDE.md: level 0
-            # saturates at batch 8), so the second right-hand side rides the
-            # same table traffic nearly free; the loop runs to
+            # coefMG dinv/idiag hierarchies) is streamed from device memory
+            # ONCE per iteration for both systems instead of once per solve.
+            # Where the Schur solve is bound by memory bandwidth the second
+            # right-hand side rides the same table traffic nearly free; the loop runs to
             # max(it_primal, it_adjoint) with per-row convergence masking
             # instead of it_primal + it_adjoint sequential trips.
             # Reference analog: none (the reference has no adjoint QoI path;

@@ -8,7 +8,7 @@ element matrices by the sample coefficient instead of re-assembling
 Round 2's unstructured stack only had MINRES on the full saddle system -
 the slowest solver family in the repo (VERDICT r2 item 6 / next-6).
 
-TPU-native formulation. With one pressure per element and constant
+Batched formulation. With one pressure per element and constant
 per-element coefficient w_e, the element blocks scale EXACTLY:
 
     local saddle  [[w_e M_e, b_e], [b_e^T, 0]]
@@ -20,7 +20,7 @@ small matmul,
 
     H(w) = sum_e C_e (1/w_e) A_e^unit C_e^T,
 
-applied as gather -> (ne, nloc, nloc) einsum (MXU work) -> two-slot
+applied as gather -> (ne, nloc, nloc) einsum -> two-slot
 gather-sum - the same static-sparsity pattern philosophy as CoefELL, with
 the per-sample "assembly" being one elementwise 1/w. PCG with the Jacobi
 diag(H(w)) preconditioner; element-local recovery of (u, p~) and the QoI.
@@ -330,13 +330,12 @@ def hybrid_solve(
     winv = 1.0 / w  # (batch, ne)
 
     def local_apply(vals):
-        # precision=highest: in float32 the TPU MXU otherwise truncates the
-        # einsum inputs to bfloat16, and the resulting operator noise puts
-        # an apparent Krylov floor near 1e-4 - measured round 5 on the
-        # cube_tet refine-4 capture: rtol 1e-5 pairs converge on CPU f32
-        # (93/68 iterations) but stalled 0%-converged on the TPU until
-        # this flag. The blocks are (nloc x nloc) smalls; the 3-pass
-        # highest-precision matmul cost is noise next to the gathers.
+        # precision=highest: at DEFAULT precision an accelerator may round
+        # float32 einsum inputs (bfloat16 passes, TF32 on the GPU), and
+        # the resulting operator noise puts an apparent Krylov floor near
+        # 1e-4: rtol 1e-5 pairs that converge on CPU f32 stall. The blocks
+        # are (nloc x nloc) smalls; the full-precision cost is noise next
+        # to the gathers.
         ue = jnp.einsum(
             "eij,...ej->...ei", H.A_unit, vals, precision="highest"
         )

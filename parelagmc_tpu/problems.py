@@ -81,10 +81,9 @@ def resolve_axis_order(axis_order, fine_ncells) -> tuple:
     """Normalize cfg.axis_order to an explicit permutation tuple.
 
     "auto" moves the largest cell count to the x (minor/fastest) axis and
-    keeps the remaining axes in their original relative order - the
-    measured-best rule for SPE10 (examples/spe10_layout_probe.py: mesh
-    order (220, 60, 85) runs the V-cycle 1.59x faster than (60, 220, 85)
-    because x pads to 128 TPU lanes)."""
+    keeps the remaining axes in their original relative order. The rule
+    was tuned for an accelerator whose minor axis pads to 128 lanes; on
+    the GPU it is kept until re-measured (ROADMAP queue 1 item 8)."""
     d = len(fine_ncells)
     if axis_order is None or axis_order == "none":
         return tuple(range(d))

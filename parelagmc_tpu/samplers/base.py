@@ -1,6 +1,6 @@
 """Abstract multilevel sampler contract.
 
-TPU-native analog of the reference's MLSampler interface
+Batched JAX analog of the reference's MLSampler interface
 (/root/reference/src/MLSampler.hpp:22-91): a sampler produces batches of
 white noise per level (`sample`) and maps noise to random-field
 realizations on a target level (`eval`), where the noise may live on a

@@ -291,7 +291,7 @@ class MaternCovariance(CovarianceFunction):
 
         Small meshes: dense eigh (exact). Large meshes: randomized subspace
         iteration on A = W^{1/2} C W^{1/2} with matrix-free kernel products
-        (_matmat) - the TPU-era replacement of the reference's hypre
+        (_matmat) - the matrix-free replacement of the reference's hypre
         LOBPCG+BoomerAMG large-problem path (MaternCovariance.cpp:357-420).
         Oracle-tested against the dense path (tests/test_kl.py)."""
         import scipy.linalg as sla

@@ -1,6 +1,6 @@
 """Truncated Karhunen-Loeve expansion sampler.
 
-TPU-native analog of the reference's KLSampler
+Batched JAX analog of the reference's KLSampler
 (/root/reference/src/KLSampler.cpp): given covariance eigenpairs
 (theta_k, b_k) on the finest level, a realization is
 
@@ -13,7 +13,7 @@ projector per level, KLSampler.cpp:172-190), and exp() for log-normal
 fields.
 
 On device the evaluation is one dense matmul (batch, modes) x (modes, n)
-per level - pure MXU work. MLMC coupling needs no restriction: fine and
+per level - one dense matmul. MLMC coupling needs no restriction: fine and
 coarse realizations share the same mode coefficients xi (the reference's
 Eval uses the same xi at every level).
 """
@@ -24,6 +24,7 @@ from typing import List, Optional
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from parelagmc_tpu.config import ProblemConfig
@@ -79,7 +80,11 @@ class KLSampler(MLSampler):
 
     def eval(self, level: int, xi: jnp.ndarray, xi_level: Optional[int] = None):
         # xi_level is irrelevant: modes are shared across levels.
-        s = (xi * self.sqrt_theta) @ self.modes[level]
+        # HIGHEST: DEFAULT float32 precision may run in TF32 on the GPU.
+        s = jnp.matmul(
+            xi * self.sqrt_theta, self.modes[level],
+            precision=lax.Precision.HIGHEST,
+        )
         return jnp.exp(s) if self.lognormal else s
 
     def nnz(self, level: int) -> int:

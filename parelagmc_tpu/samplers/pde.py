@@ -46,6 +46,7 @@ from typing import List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 import scipy.sparse as sp
 
@@ -102,14 +103,15 @@ def axis_restriction_matrices(fine_mesh, coarse_mesh, dtype):
 def restrict_cells_matmul(
     x: jnp.ndarray, mats, fine_shape: Tuple[int, ...]
 ) -> jnp.ndarray:
-    """P_l2^T via per-axis dense matmuls (MXU work); general branching."""
+    """P_l2^T via per-axis dense 0/1 matmuls; general branching. HIGHEST
+    precision keeps float32 sums exact where DEFAULT may use TF32."""
     d = len(fine_shape)
     batch = x.shape[:-1]
     z = x.reshape(batch + tuple(fine_shape[::-1]))
     for a in range(d):
         dim = z.ndim - 1 - a
         z = jnp.moveaxis(z, dim, -1)
-        z = z @ mats[a].T
+        z = jnp.matmul(z, mats[a].T, precision=lax.Precision.HIGHEST)
         z = jnp.moveaxis(z, -1, dim)
     return z.reshape(batch + (-1,))
 
@@ -146,8 +148,8 @@ class _TensorSPDEBase(MLSampler):
         # the reference's embedded variants only mitigate) and the
         # per-level marginal-variance mismatch that destroys MLMC variance
         # decay when a level under-resolves the correlation length
-        # (measured on SPE10: examples/spe10_rate_diagnostics.py; round-2
-        # evidence had beta = -0.5 from exactly this). Off by default for
+        # (measured on SPE10: examples/spe10_rate_diagnostics.py found
+        # beta = -0.5 from exactly this). Off by default for
         # statistical parity with the reference's plain sampler.
         self.field_scale: Optional[List[jnp.ndarray]] = None
         if getattr(config, "normalize_marginals", False):

@@ -1,6 +1,6 @@
 """Bayesian inverse problem: parameter-to-observable map and likelihoods.
 
-TPU-native analog of the reference's BayesianInverseProblem
+Batched JAX analog of the reference's BayesianInverseProblem
 (/root/reference/src/BayesianInverseProblem.cpp): posterior expectations of
 a QoI are computed as ratios of *prior* expectations,
 

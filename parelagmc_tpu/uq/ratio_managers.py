@@ -1,6 +1,6 @@
 """Bayesian posterior ratio estimators, single-level and multilevel.
 
-TPU-native re-design of the reference's four managers
+Batched JAX re-design of the reference's four managers
 (/root/reference/src/SL_BayesRatio_Manager.hpp,
 SL_BayesRatio_Splitting_Manager.hpp, ML_BayesRatio_Manager.hpp,
 ML_BayesRatio_Splitting_Manager.hpp):
@@ -77,7 +77,7 @@ class BayesRatioManager:
         if sharding is not None:
             self.batch = sharding.round_batch(self.batch)
         # Per-level batch sizes (finest first; cf. MLMCManager.level_batch:
-        # the finest level is HBM-bound at SPE10 scale).
+        # the finest level is bound by device memory at SPE10 scale).
         self.level_batch = [self.batch] * self.nlevels
         bpl = getattr(config, "batch_size_per_level", None)
         if bpl:
@@ -169,10 +169,9 @@ class BayesRatioManager:
 
             split = getattr(self.config, "split_pair_programs", False)
             if split:
-                # Run the Z (likelihood) and R streams as two device
-                # programs: the composed four-solve step exceeds the TPU
-                # worker's execution-duration limit at SPE10 scale
-                # (CLAUDE.md). Same RNG stream as the composed step.
+                # Run the Z (likelihood) and R streams as two bounded
+                # device programs (config.split_pair_programs). Same RNG
+                # stream as the composed step.
                 from parelagmc_tpu.ops.jit_utils import jit_hoisted
 
                 def z_stream(key):

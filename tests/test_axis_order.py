@@ -1,7 +1,7 @@
 """Axis-order relabeling (config.axis_order): the device grid layout
 permutation must leave the PHYSICS identical - same QoI for the same
 physical coefficient field and the same per-level dof counts - because it
-only relabels which mesh axis is the fast (TPU-lane) array dimension.
+only relabels which mesh axis is the fast (minor) array dimension.
 
 Oracle: build the same box problem with and without a permutation, feed
 the SAME physical cell field (re-flattened to each layout), and compare

@@ -195,8 +195,8 @@ def test_coefmg_bf16_prec_state_matches():
     same QoI with essentially the same iteration count - a preconditioner
     only needs ~1e-2 relative quality. Measured at synthetic-SPE10
     contrast (32,64,16), f32 solve: 48/74 iterations at rtol 1e-5/1e-6
-    for BOTH f32 and bf16 states; on TPU the V-cycle is HBM-bound so the
-    bf16 state halves its bytes."""
+    for BOTH f32 and bf16 states; the bf16 state halves the
+    bandwidth-bound V-cycle's bytes."""
     import jax
 
     from parelagmc_tpu.samplers import SPDESampler
@@ -227,7 +227,7 @@ def test_coefmg_bf16_prec_state_matches():
 
 def test_coefmg_smoother_knobs_reach_preconditioner():
     """coefmg_sweeps / coefmg_omega / coefmg_cheby_order change only the
-    preconditioner (examples/spe10_mg_tuning.py's scan surface): every
+    preconditioner (the smoother-tuning surface): every
     variant converges to the same QoI; a deliberately weakened smoother
     (one damped sweep) needs at least as many iterations as V(2,2)."""
     import jax

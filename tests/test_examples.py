@@ -211,9 +211,8 @@ def test_spe10_full_grid_solver_defaults():
     assert ds.max_iterations == 75
     assert ds.coefmg_cheby_order == 3 and ds.coefmg_cheby_lo == 0.10
     assert ds.coefmg_prec_dtype == "bfloat16"
-    # r4 steady-state decisions (SPE10_MEANFIELD_EVIDENCE.json /
-    # SPE10_STACKED_EVIDENCE.json): mean-field warm starts ON (wins every
-    # level), stacked adjoint OFF (loses at levels 0-1 in steady state -
+    # Steady-state decisions (see examples/spe10_mlmc.py): mean-field warm
+    # starts ON (wins every level), stacked adjoint OFF (loses at levels 0-1 in steady state -
     # the few-batch C_l that briefly crowned it was overhead noise).
     assert ds.meanfield_x0
     assert not ds.adjoint_stacked

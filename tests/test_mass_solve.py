@@ -102,25 +102,33 @@ def test_cg_schur_iteration_count():
     assert int(info.iterations) < 40
 
 
-@pytest.mark.parametrize("variant", ["thomas", "pscan", "pallas"])
-def test_mass_tridiag_scan_variants_match_dense(variant):
-    """The big-grid solve paths (sequential Thomas scan / log-depth
-    associative-scan / fused Pallas kernel, interpreter mode on CPU) match
-    the dense oracle exactly like the default tridiagonal_solve path."""
+@pytest.mark.parametrize("variant", ["thomas", "pallas"])
+def test_mass_tridiag_scan_variants_match_dense(variant, monkeypatch):
+    """The line-solve routes other than the default tridiagonal_solve
+    (sequential Thomas scan / the Pallas Triton kernel, in Pallas'
+    interpreter on the CPU) match the dense oracle through
+    MassTridiagSolver's prepared-table path."""
+    import functools
+
+    from parelagmc_tpu.ops import tridiag
+
+    route = {"pallas": "triton"}.get(variant, variant)
+    if route == "triton":
+        monkeypatch.setattr(
+            tridiag, "_thomas_rows",
+            functools.partial(tridiag._thomas_rows, interpret=True,
+                              block_lines=16),
+        )
     mesh = make_box_mesh((5, 4, 3), lengths=(1.0, 2.0, 0.5))
     lvl = build_mixed_level(mesh)
     ess = lvl.ess_faces(np.array([1, 0, 1, 0, 1, 1]))
     solver = build_mass_tridiag_solver(lvl, ess, dtype=DT)
-    solver = solver._replace(
-        use_scan=variant == "thomas",
-        use_pscan=variant == "pscan",
-        use_pallas=variant == "pallas",
-    )
     rng = np.random.default_rng(4)
     w = np.exp(2.0 * rng.normal(size=(2, lvl.n_s)))
     rhs = rng.normal(size=(2, lvl.n_u))
     rhs[:, ess] = 0.0
-    z = np.asarray(solver(jnp.asarray(w), jnp.asarray(rhs)))
+    with tridiag.route_override(route):
+        z = np.asarray(solver(jnp.asarray(w), jnp.asarray(rhs)))
     for b in range(2):
         M = lvl.mass_csr(w[b]).toarray()
         Mi = M.copy()

@@ -14,15 +14,28 @@ from parelagmc_tpu.utils.io_vtk import cell_to_vertex_average, save_vtk_vertex_f
 DT = jnp.float64
 
 
-def test_sample_normals_cpu_fallback():
+def test_sample_normals_moments():
     x = np.asarray(sample_normals(jax.random.PRNGKey(0), (1000, 50), DT))
     assert abs(x.mean()) < 0.05 and abs(x.std() - 1.0) < 0.05
 
 
-def test_sample_uniforms_cpu_fallback():
+def test_sample_uniforms_moments():
     x = np.asarray(sample_uniforms(jax.random.PRNGKey(1), (2000,), DT))
     assert 0.0 <= x.min() and x.max() < 1.0
     assert abs(x.mean() - 0.5) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_noise_is_jax_random_bit_for_bit(dtype):
+    key = jax.random.PRNGKey(5)
+    np.testing.assert_array_equal(
+        np.asarray(sample_normals(key, (7, 33), dtype)),
+        np.asarray(jax.random.normal(key, (7, 33), dtype=dtype)),
+    )
+    np.testing.assert_array_equal(
+        np.asarray(sample_uniforms(key, (40,), dtype)),
+        np.asarray(jax.random.uniform(key, (40,), dtype=dtype)),
+    )
 
 
 def test_eval_with_flux_satisfies_first_block_row():

@@ -131,6 +131,47 @@ def test_sharded_split_segments_continue(tmp_path):
         np.testing.assert_allclose(a, b, rtol=5e-4, atol=1e-8)
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_split_step_compiles_each_program_once(sharded):
+    """aot_compile builds the very programs the split pair step runs: the
+    stage-2 examples carry the 'dp' sharding the handoff arrays arrive
+    with, so the first call compiles nothing more."""
+    import logging
+
+    TimeManager.reset()
+    mesh = make_box_mesh((2, 2, 2), lengths=(2.0, 2.0, 2.0))
+    hier = build_geometric_hierarchy(mesh, 2)
+    cfg = ProblemConfig(
+        refinements=1, mse=1e10, batch_size=16, initial_samples=16,
+        output_filename="", seed=5, split_pair_programs=True,
+    )
+    sampler = SPDESampler(hier, cfg, DT)
+    solver = DarcySolver(hier, cfg, DT)
+    mgr = MLMCManager(solver, sampler, cfg,
+                      sharding=SampleMesh() if sharded else None)
+    compiles = []
+
+    class Count(logging.Handler):
+        def emit(self, record):
+            if "Finished XLA compilation of jit(pure)" in record.getMessage():
+                compiles.append(record)
+
+    handler = Count()
+    logger = logging.getLogger("jax._src.dispatch")
+    logger.addHandler(handler)
+    try:
+        with jax.log_compiles():
+            step = mgr._step(0)
+            step.aot_compile()
+            n_aot = len(compiles)
+            jax.block_until_ready(step(jax.random.PRNGKey(3)))
+    finally:
+        logger.removeHandler(handler)
+    assert n_aot == 2  # stage 1 and stage 2 (one segment: no continuations)
+    assert len(compiles) == n_aot
+    mgr.close()
+
+
 def test_sample_shards_config_surface(tmp_path):
     """config.sample_shards (the --sample-shards CLI flag) makes every
     manager build its own 'dp' SampleMesh: -1 = all visible devices; the

@@ -1,6 +1,6 @@
 """Spatial domain decomposition (parallel/spatial.py): one realization's
 solve sharded over the virtual 8-device mesh, validated against the
-unsharded solve - the TPU analog of the reference's ParMesh + SharingMap
+unsharded solve - the analog of the reference's ParMesh + SharingMap
 halo exchange (PDESampler.cpp:395-398) under oversubscribed mpirun."""
 
 import numpy as np

@@ -61,8 +61,7 @@ def test_spe10_scaled_ratio_anchor(tmp_path, monkeypatch):
     VERDICT next-round item 2; reference ML_BayesRatio_Manager.hpp:314-573):
     pins the posterior estimate of examples/spe10_ratio_mlmc.py --grid
     16,32,8, CPU float64, fixed seed + synthetic obs data, so the
-    at-scale SPE10_RATIO_EVIDENCE.json capture has a CI-guarded
-    counterpart."""
+    at-scale run has a CI-guarded counterpart."""
     import sys
 
     monkeypatch.chdir(tmp_path)

@@ -1,14 +1,13 @@
-"""Full-grid SPE10 smoke: operator-build + compile-only HBM probe + one
-single-batch convergence check, without a TPU (round-4 VERDICT next-round
-item 8; reference CTest philosophy, examples/CMakeLists.txt:59-120).
+"""Full-grid SPE10 smoke: operator-build + compile-only memory probe + one
+single-batch convergence check, without a GPU (reference CTest
+philosophy, examples/CMakeLists.txt:59-120).
 
-Until round 5 every full-grid number lived in hand-refreshed evidence
-files; the CI anchor (tests/test_spe10_anchor.py) pins only a 16x32x8
-scaled run, so an operator-build or memory regression at the real
-60x220x85 grid would surface only at the next manual TPU capture. This
-test builds the production problem at full grid on the CPU backend,
-compiles (without executing) the HBM-critical level-0 fine warm-start
-program via the jit_hoisted compile-only probe (the CLAUDE.md recipe) and
+The CI anchor (tests/test_spe10_anchor.py) pins only a 16x32x8 scaled
+run, so an operator-build or memory regression at the real 60x220x85 grid
+would surface only at the next GPU run (chip_smoke.py). This test builds
+the production problem at full grid on the CPU backend, compiles (without
+executing) the memory-critical level-0 fine warm-start program via the
+jit_hoisted compile-only probe and
 bounds its temp footprint, and runs ONE small batch at level 1 asserting
 converged_fraction == 1.0 with production-anchor-class iteration counts.
 
@@ -43,7 +42,7 @@ def test_spe10_fullgrid_build_compile_converge():
 
     # Full-grid operator shapes (catches hierarchy/operator-build drift).
     assert solver.num_dofs(0) > 4_000_000
-    # (SPE10_EVIDENCE.json anchors; z coarsens 85 -> 42 -> 21 by merging
+    # (z coarsens 85 -> 42 -> 21 by merging
     # the trailing layer into the last coarse cell.)
     assert [sampler.sample_size(l) for l in range(3)] == [
         1_122_000, 138_600, 17_325
@@ -53,10 +52,10 @@ def test_spe10_fullgrid_build_compile_converge():
     ]
 
     # Compile-only probe of the level-0 fine warm-start program at the
-    # production batch 8 - the HBM-critical program of the split pair
-    # step. CPU-backend temp size differs from the TPU's (layout/fusion),
+    # production batch 8 - the memory-critical program of the split pair
+    # step. CPU-backend temp size differs from a GPU's (layout/fusion),
     # but an operator blowup (extra materialized fields, lost remat) moves
-    # it by integer factors; r3 measured 8.6 GB on the v5e at batch 8.
+    # it by integer factors; chip_smoke.py prints the card's figure.
     batch = 8
     key = jax.random.PRNGKey(0)
     n_sf = solver.levels[0].n_s
